@@ -1,8 +1,8 @@
 // Native graph Smith-Waterman engine: exact fill + traceback.
 //
-// Host-side runtime companion to the TPU batched scorer: the device ranks
+// Host-side runtime companion to the batched device scorer: the device ranks
 // orientations and computes scores/uniqueness for thousands of reads at
-// once (paragraph_tpu/ops/*_sw.py); this library produces the node-CIGARs
+// once (paragraph_tpu/ops/multi_sw.py); this library produces the node-CIGARs
 // for kept reads at C speed. It implements the same recurrences and
 // traceback preference rules as paragraph_tpu/align/gssw.py (which is
 // differentially validated cell-exactly against the reference gssw C

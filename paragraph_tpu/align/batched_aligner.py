@@ -1,25 +1,22 @@
 """Batched graph aligner: device scoring + host traceback.
 
-TPU-native realisation of grm::GraphAligner's per-read protocol
-(GraphAligner.cpp:308-404): all reads are scored in one batched device
-fill per orientation (forward/reverse-complement × forward/reversed
-graph), strand and uniqueness are selected vectorised, and only the chosen
-orientation of each kept read goes through the exact scalar traceback to
-produce its node-CIGAR.
+Batched realisation of grm::GraphAligner's per-read protocol
+(GraphAligner.cpp:308-404): all reads are scored in one paired device
+dispatch covering the four orientations (forward/reverse-complement ×
+forward/reversed graph; ops/multi_sw.py PairedGraphSW, the same scorer
+the cross-event batch path uses), strand and uniqueness are selected
+vectorised, and only the chosen orientation of each kept read goes
+through the exact scalar traceback to produce its node-CIGAR.
 """
 from __future__ import annotations
 
-import logging
 import os
 from typing import List, Optional
 
 from ..graph.model import SequenceGraph
-from ..ops.batched_sw import BatchedGraphSW
 from ..reads.read import Read
 from .graph_aligner import reverse_complement
 from .gssw import GraphSW
-
-logger = logging.getLogger("paragraph")
 
 
 def resolve_threads(threads: int) -> int:
@@ -29,25 +26,6 @@ def resolve_threads(threads: int) -> int:
     if threads and threads > 0:
         return threads
     return os.cpu_count() or 1
-
-
-def _make_scorer(graph: SequenceGraph):
-    """Pallas kernel on TPU, XLA scan elsewhere (same exact outputs)."""
-    import jax
-
-    if jax.devices()[0].platform != "cpu":
-        try:
-            from ..ops.pallas_sw import PallasGraphSW
-
-            return PallasGraphSW(graph)
-        except Exception as exc:
-            # deliberate broad catch: any device/toolchain failure must
-            # degrade to the (slower, exact) scan engine — but loudly
-            logger.warning(
-                "Pallas graph-SW unavailable (%s: %s); using the XLA scan "
-                "engine (expect ~30x slower scoring)",
-                type(exc).__name__, exc)
-    return BatchedGraphSW(graph)
 
 
 def make_orientation_batches(reads: List[Read]):
@@ -64,23 +42,23 @@ def make_orientation_batches(reads: List[Read]):
 class BatchedGraphAligner:
     def __init__(self, graph: Optional[SequenceGraph] = None,
                  scoring: bool = True, threads: int = 1):
-        self._fwd_scorer: Optional[BatchedGraphSW] = None
-        self._rev_scorer: Optional[BatchedGraphSW] = None
+        self._scorer = None
         self._fwd_scalar: Optional[GraphSW] = None
         self._fwd_native = None
         self._scoring = scoring
         self.threads = threads
-        #: which scoring engine actually ran ("pallas" | "scan" |
-        #: "precomputed"); surfaced in alignment_statistics so a silent
-        #: device fallback is visible in the output JSON
+        #: which fill engine produced the scores ("cuda" | "xla", see
+        #: ops/multi_sw.py select_engine); surfaced in
+        #: alignment_statistics
         self.engine = "none"
         if graph is not None:
             self.set_graph(graph)
 
     def set_graph(self, graph: SequenceGraph):
         if self._scoring:
-            self._fwd_scorer = _make_scorer(graph)
-            self._rev_scorer = _make_scorer(graph.reversed())
+            from ..ops.multi_sw import PairedGraphSW
+
+            self._scorer = PairedGraphSW([graph])
         self._fwd_scalar = GraphSW(graph)
         # C-speed traceback for kept reads when the native lib builds
         try:
@@ -119,61 +97,29 @@ class BatchedGraphAligner:
         """
         if not reads:
             return
-        fwd_bases, rev_bases, fwd_batch, rev_batch = \
-            make_orientation_batches(reads)
+        fwd_bases, rev_bases, _, _ = make_orientation_batches(reads)
         n = len(reads)
 
         f_ends = None  # (end_node, end_ref, end_read) vs the fwd graph
         if precomputed is not None:
+            # (f_score, f_multi, r_multi[, f_end_node, f_end_ref,
+            # f_end_read[, engine]]) from a cross-event scoring pass
             if len(precomputed) >= 6:
                 (f_score, f_multi, r_multi,
                  f_en, f_er, f_erd) = precomputed[:6]
                 f_ends = (f_en, f_er, f_erd)
             else:
                 f_score, f_multi, r_multi = precomputed[:3]
-            self.engine = "precomputed"
+            self.engine = (precomputed[6] if len(precomputed) >= 7
+                           else "precomputed")
         else:
-            try:
-                if (hasattr(self._fwd_scorer, "score_device")
-                        and hasattr(self._rev_scorer, "score_device")):
-                    # pipeline both orientation dispatches before the
-                    # first host fetch (hides one device round trip)
-                    hf = self._fwd_scorer.score_device(fwd_batch)
-                    hr = self._rev_scorer.score_device(rev_batch)
-                    if hf is not None and hr is not None:
-                        f_score, f_en, f_er, f_erd, f_multi = \
-                            self._fwd_scorer.finalize(hf)
-                        _, _, _, _, r_multi = self._rev_scorer.finalize(hr)
-                    else:
-                        f_score, f_en, f_er, f_erd, f_multi = \
-                            self._fwd_scorer.score(fwd_batch)
-                        _, _, _, _, r_multi = \
-                            self._rev_scorer.score(rev_batch)
-                    self.engine = "pallas"
-                else:
-                    f_score, f_en, f_er, f_erd, f_multi = \
-                        self._fwd_scorer.score(fwd_batch)
-                    _, _, _, _, r_multi = self._rev_scorer.score(rev_batch)
-                    self.engine = "scan"
-                f_ends = (f_en, f_er, f_erd)
-            except Exception as exc:
-                # device kernel failed (e.g. Mosaic/compile issue on this
-                # toolchain) — fall back to the XLA scan scorer permanently,
-                # and say so: a mis-compiled kernel on new hardware must
-                # show up as a warning, not just mysterious slowness
-                if isinstance(self._fwd_scorer, BatchedGraphSW):
-                    raise
-                logger.warning(
-                    "device graph-SW scoring failed (%s: %s); falling back "
-                    "to the XLA scan engine for this graph",
-                    type(exc).__name__, exc)
-                self._fwd_scorer = BatchedGraphSW(self._fwd_scorer.graph)
-                self._rev_scorer = BatchedGraphSW(self._rev_scorer.graph)
-                f_score, f_en, f_er, f_erd, f_multi = \
-                    self._fwd_scorer.score(fwd_batch)
-                _, _, _, _, r_multi = self._rev_scorer.score(rev_batch)
-                self.engine = "scan"
-                f_ends = (f_en, f_er, f_erd)
+            # one paired dispatch: f_out = [fwd + revcomp] vs the forward
+            # graph, r_out = their reversals vs the reversed graph
+            f_out, r_out = self._scorer.score_pairs([fwd_bases])[0]
+            f_score, f_en, f_er, f_erd, f_multi = f_out
+            r_multi = r_out[4]
+            self.engine = self._scorer.engine
+            f_ends = (f_en, f_er, f_erd)
 
         import numpy as np
 

@@ -2,8 +2,8 @@
 
 Builds the shared library on first use (make -C native); falls back
 gracefully when no compiler is available. The native engine provides
-C-speed fill+traceback for CIGAR production of kept reads while the TPU
-batched scorer handles orientation ranking.
+C-speed fill+traceback for CIGAR production of kept reads while the
+device scorer (ops/multi_sw.py) handles orientation ranking.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Vectorized genotyping likelihoods in JAX.
 
-TPU-scale counterpart of the scalar parity engine in
+Device counterpart of the scalar parity engine in
 ``breakpoint_genotyper.py``: Poisson genotype likelihoods evaluated for
 whole (events × samples × breakpoints) batches at once, suitable for
-pod-sharded population runs (SURVEY.md §2.3). The scalar float64 engine
+mesh-sharded population runs (SURVEY.md §2.3). The scalar float64 engine
 remains the bit-parity path; this one trades double-precision boost
 semantics for throughput.
 """

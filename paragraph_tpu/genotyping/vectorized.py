@@ -17,7 +17,7 @@ with array arithmetic. Parity is engineered, not approximate:
 
 ``tests/test_vectorized_genotyper.py`` asserts bitwise-identical
 Genotype output against the scalar engine over randomized batches. The
-float32 TPU engine for pod-scale population runs lives in ``batched.py``.
+float32 device engine for population runs lives in ``batched.py``.
 """
 from __future__ import annotations
 

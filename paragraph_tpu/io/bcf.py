@@ -2,7 +2,7 @@
 
 The reference handles binary BCF through htslib wrappers
 (/root/reference/src/c++/lib/common/BCFHelpers.cpp: GT/AD/DP extraction,
-sample handling) and pysam; this module gives the TPU framework the same
+sample handling) and pysam; this module gives this framework the same
 capability over the existing BGZF layer (io/bgzf.py). ``BcfReader``
 produces exactly the header lines + per-record raw-string fields that
 ``io/vcf.py``'s text parser produces, so every pipeline stage

@@ -1,9 +1,9 @@
-"""Batched graph Smith-Waterman scoring on TPU (JAX/XLA).
+"""Batched graph Smith-Waterman scoring over one graph (JAX/XLA).
 
-TPU-native re-design of the gssw fill (SURVEY.md §7.3): instead of one
+A batched re-design of the gssw fill (SURVEY.md §7.3): instead of one
 read × one node at a time with SSE stripes, thousands of reads are scored
 simultaneously as a `lax.scan` over the concatenated reference columns of
-all graph nodes in topological order. Each scan step performs pure VPU
+all graph nodes in topological order. Each scan step is elementwise
 work on [batch, read_len] tiles:
 
   H'     = max(0, H_prev(shifted) + profile, E)

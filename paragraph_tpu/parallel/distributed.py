@@ -1,13 +1,13 @@
 """Mesh-sharded event scoring: the production scorer on >1 device.
 
-TPU-native replacement for grmpy's thread pool over (sample x graph)
+Replaces grmpy's thread pool over (sample x graph)
 (/root/reference/src/c++/lib/grmpy/Workflow.cpp:224-231): (graph, reads)
-pairs are partitioned across the devices of a 1-D ``jax.sharding.Mesh``
-and one ``shard_map``-wrapped jit runs the paired Pallas fill
-(ops/multi_sw.py) on every device simultaneously — per-shard graph
-column streams, predecessor tables, and read batches are just sharded
-*data*, so a single compiled program serves all shards and XLA/ICI do
-the placement. Event sharding needs no collectives (events are
+pairs are partitioned across the devices of a flat 1-D
+``jax.sharding.Mesh`` and one ``shard_map``-wrapped jit runs the paired
+fill (ops/multi_sw.py paired_fill, with the platform's engine) on every
+device simultaneously — per-shard graph column streams, predecessor
+tables, and read batches are just sharded *data*, so a single compiled
+program serves all shards. Event sharding needs no collectives (events are
 independent, exactly like the reference's pool); read-level
 data-parallel count merging with psum lives in parallel/mesh.py.
 
@@ -30,12 +30,12 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..graph.model import SequenceGraph
 from ..ops.batched_sw import GraphArrays
-from ..ops.multi_sw import (DEFAULT_TB, L_EV_FLOOR, M_FLOOR, PAIR_BUDGET,
-                            TILE_BUDGET, MultiGraphArrays, PairedGraphSW,
-                            _auto_interpret, _bucket, _pow2_at_least,
-                            build_pair_tables, pair_count,
-                            pair_max_len, pair_tiles,
-                            paired_pallas_fill, slice_pair_outputs)
+from ..ops.multi_sw import (COL_BUDGET, DEFAULT_TB, L_EV_FLOOR, M_FLOOR,
+                            PAIR_BUDGET, TABLE_KEYS, TILE_BUDGET,
+                            MultiGraphArrays, _bucket, _pow2_at_least,
+                            build_pair_tables, pair_count, pair_max_len,
+                            pair_tiles, paired_fill, resolve_engine,
+                            slice_pair_outputs)
 
 
 def make_event_mesh(n_devices: Optional[int] = None,
@@ -56,22 +56,23 @@ def make_event_mesh(n_devices: Optional[int] = None,
 class ShardedPairedSW:
     """score_pairs()-compatible scorer that shards pairs over a mesh.
 
-    Pairs are packed into per-device *slots* (each bounded by the scalar
-    -prefetch column budget, like PairedGraphSW chunks); S slots = one
-    *round* = one sharded dispatch over the S-device mesh.
+    Pairs are packed into per-device *slots* (each bounded by the column
+    and pair budgets of PairedGraphSW chunks); S slots = one *round* =
+    one sharded dispatch over the S-device mesh.
     """
 
     def __init__(self, graphs: Sequence[SequenceGraph],
                  mesh: Optional[Mesh] = None,
-                 tile_batch: int = DEFAULT_TB, interpret: bool = False,
-                 col_budget: int = PairedGraphSW.COL_BUDGET):
+                 tile_batch: int = DEFAULT_TB, engine: str = None,
+                 col_budget: int = COL_BUDGET):
         self.mesh = mesh if mesh is not None else make_event_mesh()
         (self.axis,) = self.mesh.axis_names
         S = self.mesh.devices.size
         self.n_shards = S
         self.tile_batch = tile_batch
-        self.interpret = _auto_interpret(
-            interpret or self.mesh.devices.flat[0].platform == "cpu")
+        platform = self.mesh.devices.flat[0].platform
+        self.engine = resolve_engine(platform, engine)
+        self.bucketed = platform != "cpu"
 
         built = {}
 
@@ -93,7 +94,7 @@ class ShardedPairedSW:
 
         # pack pairs into per-device slots: at least min(S, n_pairs) slots
         # so small event batches still spread over the whole mesh, and no
-        # slot exceeds the scalar-prefetch column budget; longest-
+        # slot exceeds the column budget; longest-
         # processing-time greedy keeps the shards balanced
         pair_cols = [len(fa.ref_codes) + len(ra.ref_codes)
                      for fa, ra in pair_gas]
@@ -177,13 +178,13 @@ class ShardedPairedSW:
 
         def shard_fn(*args):
             args = [x[0] for x in args]
-            out = paired_pallas_fill(*args, **statics)
+            out = paired_fill(*args, **statics)
             return out[None]
 
         @jax.jit
         def fill(*args):
-            # check_vma=False: pallas_call out_shapes carry no varying-
-            # mesh-axes annotation, which the checker would reject
+            # check_vma=False: the CUDA fill's FFI call carries no
+            # varying-mesh-axes annotation, which the checker would reject
             return jax.shard_map(
                 shard_fn, mesh=mesh, in_specs=(spec,) * len(args),
                 out_specs=spec, check_vma=False)(*args)
@@ -197,7 +198,7 @@ class ShardedPairedSW:
         sharding = NamedSharding(self.mesh, P(self.axis))
         max_len = max((pair_max_len(r) for r in reads_per_pair),
                       default=1)
-        m_floor = 32 if self.interpret else M_FLOOR
+        m_floor = M_FLOOR if self.bucketed else 32
         pad_to = max(pad_to, m_floor, _bucket(max_len, 32))
 
         pending = []
@@ -214,12 +215,12 @@ class ShardedPairedSW:
             tiles_raw = max(
                 (sum(pair_tiles(pair_count(r), tb) for r in slot_reads(k, s))
                  for k, s in enumerate(slot_ids)), default=0)
-            t_floor = 1 if self.interpret else TILE_BUDGET
+            t_floor = TILE_BUDGET if self.bucketed else 1
             tiles_to = _pow2_at_least(tiles_raw, t_floor)
             reads_max = max(
                 (sum(pair_count(r) for r in slot_reads(k, s))
                  for k, s in enumerate(slot_ids)), default=0)
-            b_floor = 1 if self.interpret else 1024
+            b_floor = 1024 if self.bucketed else 1
             bases_to = min(_pow2_at_least(reads_max, b_floor),
                            tiles_to * tb // 4)
 
@@ -228,20 +229,17 @@ class ShardedPairedSW:
                 pad_to, tiles_to=tiles_to, bases_to=bases_to,
                 l_ev_floor=self.l_ev)
                 for k, s in enumerate(slot_ids)]
-            statics = dict(L=self.L, L_ev=self.l_ev, N=self.n_max,
-                           P=self.p_max, M=tables[0]["m"], TB=tb,
-                           interpret=self.interpret)
+            statics = dict(L_ev=self.l_ev, N=self.n_max, P=self.p_max,
+                           M=tables[0]["m"], TB=tb, engine=self.engine)
             if self._fill is None or self._fill[0] != tuple(
                     sorted(statics.items())):
                 self._fill = (tuple(sorted(statics.items())),
                               self._make_fill(statics))
             fill = self._fill[1]
 
-            keys = ("tile_col_start", "tile_col_len", "tile_event",
-                    "codes_t", "lens", "vlens", "col_idx", "flip", "comp")
             # one batched sharded transfer for all per-round tables
             puts = jax.device_put(
-                tuple(np.stack([t[k] for t in tables]) for k in keys),
+                tuple(np.stack([t[k] for t in tables]) for k in TABLE_KEYS),
                 sharding)
             out = fill(*dev, *puts)
             pending.append((slot_ids, n_real, tables, out))

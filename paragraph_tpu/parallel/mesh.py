@@ -1,7 +1,7 @@
-"""Device-mesh primitives for pod-scale genotyping.
+"""Device-mesh primitives for sharded genotyping.
 
 The reference is single-node (thread pools over graphs and samples,
-SURVEY.md §2.3); the TPU-native distribution axes are:
+SURVEY.md §2.3); here the distribution axes are:
 
 - reads   → data-parallel inside the multi-event fill's batch dimension
   (ops/multi_sw.py); per-edge read counts merge with psum

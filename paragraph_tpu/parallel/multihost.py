@@ -1,19 +1,19 @@
-"""Multi-host distribution: event sharding across a pod slice.
+"""Multi-host distribution: event sharding across hosts.
 
 The reference scales to populations by farming independent jobs and
 merging VCFs (`bcftools merge`, /root/reference/README.md:111-117); the
-TPU-native equivalent keeps that embarrassingly-parallel structure but
+equivalent here keeps that embarrassingly-parallel structure but
 makes it one program: ``jax.distributed`` initializes the process group,
 every host genotypes a strided shard of the event list on its local
 chips (extraction and host analysis stay per-host — each host reads the
 BAMs it needs), and the per-event genotyping JSONs are exchanged with a
-``process_allgather`` over DCN so every host — and in particular host 0,
+``process_allgather`` between hosts so every host — and in particular host 0,
 which writes the output VCF — holds the complete, event-ordered result.
 
 No cross-host collective is needed *during* scoring or genotyping
-(events are independent); DCN carries only the final small JSON shards,
-while read batches ride each host's local ICI mesh
-(parallel/distributed.py).
+(events are independent); the network between hosts carries only the
+final small JSON shards, while read batches stay on each host's local
+device mesh (parallel/distributed.py).
 """
 from __future__ import annotations
 
@@ -33,8 +33,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """jax.distributed.initialize wrapper (no-op if already connected).
 
-    On TPU pods the three arguments auto-detect from the environment;
-    pass them explicitly for CPU/two-process testing."""
+    Pass the three arguments explicitly (coordinator address, process
+    count, process id): nothing in a plain GPU host or CPU test
+    environment lets JAX detect them."""
     # NB: must not touch jax.devices()/process_count() here — any backend
     # query before initialize() is an error by design
     if jax._src.distributed.global_state.client is not None:

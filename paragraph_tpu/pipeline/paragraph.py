@@ -191,8 +191,8 @@ def align_and_disambiguate(parameters: Parameters,
             read_filter_counts.get("bad_align", 0) / total_reads_input)
     output["alignment_statistics"]["bad_alignment_pct"] = bad_alignment_pct
     if align_stats.get("engine"):
-        # which scoring engine actually ran (pallas | scan | precomputed):
-        # makes silent device fallbacks visible in the output JSON
+        # which fill engine produced the scores (cuda | xla, see
+        # ops/multi_sw.py select_engine)
         output["alignment_statistics"]["engine"] = align_stats["engine"]
     for error, count in sorted(read_filter_counts.items()):
         output["alignment_statistics"]["read_filter_" + error] = count

@@ -40,9 +40,8 @@ def test_sharded_matches_single_device(n_pairs):
                 reads.append(r)
         reads_per_pair.append(reads)
 
-    sharded = ShardedPairedSW(graphs, mesh=make_event_mesh(8),
-                              interpret=True)
-    single = PairedGraphSW(graphs, interpret=True)
+    sharded = ShardedPairedSW(graphs, mesh=make_event_mesh(8))
+    single = PairedGraphSW(graphs)
     got = sharded.score_pairs(reads_per_pair)
     want = single.score_pairs(reads_per_pair)
     for k in range(n_pairs):
@@ -65,10 +64,10 @@ def test_sharded_multi_round():
         reads_per_pair.append([r] if r else ["ACGTACGTACGT"])
     # one pair per slot, 2-device mesh -> 3 rounds
     sharded = ShardedPairedSW(graphs, mesh=make_event_mesh(2),
-                              interpret=True, col_budget=1)
+                              col_budget=1)
     assert len(sharded.rounds) == 3
     got = sharded.score_pairs(reads_per_pair)
-    want = PairedGraphSW(graphs, interpret=True).score_pairs(reads_per_pair)
+    want = PairedGraphSW(graphs).score_pairs(reads_per_pair)
     for k in range(5):
         for side in range(2):
             for a, b in zip(got[k][side], want[k][side]):

@@ -1,14 +1,14 @@
-"""PairedGraphSW (single-upload 4-orientation protocol) vs the legacy
-two-batch MultiGraphSW path: outputs must be bit-identical, since the
-on-device orientation derivation must reproduce host-side string
-reversal/complement + encode exactly (ops/multi_sw.py paired_pallas_fill)."""
+"""PairedGraphSW (single-upload 4-orientation protocol): the on-device
+orientation derivation must reproduce host-side string reversal and
+complement exactly, so every orientation of every read matches the
+scalar oracle (ops/multi_sw.py expand_orientations)."""
 import random
 
-from paragraph_tpu.align.graph_aligner import reverse_complement
 from paragraph_tpu.graph.model import SequenceGraph
-from paragraph_tpu.ops.multi_sw import MultiGraphSW, PairedGraphSW
+from paragraph_tpu.ops.multi_sw import PairedGraphSW
 
 from test_gssw_vs_reference import _random_graph, _read_from_graph
+from test_multi_sw import check_against_oracle
 
 
 def _make_graph(seqs, edges):
@@ -19,6 +19,9 @@ def _make_graph(seqs, edges):
 
 
 def test_paired_matches_legacy_batches():
+    """The paired layout's f_out/r_out equal the two legacy batches
+    ([fwd + revcomp] vs the graph, their reversals vs the reversed graph)
+    scored read by read with the scalar oracle."""
     rng = random.Random(909)
     graphs = []
     reads_per_pair = []
@@ -33,30 +36,8 @@ def test_paired_matches_legacy_batches():
                 reads.append(r)
         reads_per_pair.append(reads)
 
-    paired = PairedGraphSW(graphs, interpret=True)
-    got = paired.score_pairs(reads_per_pair)
-
-    legacy_graphs = []
-    legacy_batches = []
-    for g, reads in zip(graphs, reads_per_pair):
-        fwd = [r.upper() for r in reads]
-        rc = [reverse_complement(r) for r in fwd]
-        legacy_graphs.extend([g, g.reversed()])
-        legacy_batches.append(fwd + rc)
-        legacy_batches.append([b[::-1] for b in fwd] + [b[::-1] for b in rc])
-    legacy = MultiGraphSW(legacy_graphs, interpret=True)
-    want = legacy.score(legacy_batches)
-
-    for k in range(len(graphs)):
-        f_out, r_out = got[k]
-        for name, a, b in zip(
-                ("score", "end_node", "end_ref", "end_read", "multi"),
-                f_out, want[2 * k]):
-            assert (a == b).all(), (k, "fwd", name, a, b)
-        for name, a, b in zip(
-                ("score", "end_node", "end_ref", "end_read", "multi"),
-                r_out, want[2 * k + 1]):
-            assert (a == b).all(), (k, "rev", name, a, b)
+    got = PairedGraphSW(graphs).score_pairs(reads_per_pair)
+    check_against_oracle(graphs, reads_per_pair, got)
 
 
 def test_paired_chunking_keeps_pairs_together():
@@ -69,10 +50,10 @@ def test_paired_chunking_keeps_pairs_together():
         r = _read_from_graph(rng, seqs, edges, read_len=10)
         reads_per_pair.append([r] if r else ["ACGTACGT"])
     # force one pair per chunk
-    paired = PairedGraphSW(graphs, interpret=True, col_budget=1)
+    paired = PairedGraphSW(graphs, col_budget=1)
     assert len(paired.chunk_pairs) == 4
     got = paired.score_pairs(reads_per_pair)
-    one = PairedGraphSW(graphs, interpret=True)
+    one = PairedGraphSW(graphs)
     want = one.score_pairs(reads_per_pair)
     for k in range(4):
         for side in range(2):
@@ -99,7 +80,7 @@ def test_blob_form_matches_string_form():
                 reads.append(r)
         reads_per_pair.append(reads)
 
-    sw = PairedGraphSW(graphs, interpret=True)
+    sw = PairedGraphSW(graphs)
     want = sw.score_pairs(reads_per_pair)
 
     blobs = []
@@ -107,7 +88,7 @@ def test_blob_form_matches_string_form():
         up = [r.upper() for r in reads]
         lens = np.fromiter((len(r) for r in up), np.int32, count=len(up))
         blobs.append(("".join(up).encode(), lens))
-    got = PairedGraphSW(graphs, interpret=True).score_pairs(blobs)
+    got = PairedGraphSW(graphs).score_pairs(blobs)
 
     for (gf, gr), (wf, wr) in zip(got, want):
         for a, b in zip(gf + gr, wf + wr):
